@@ -1,4 +1,4 @@
-"""eigensolvers_tpu — a TPU-native targeted-eigensolver framework.
+"""eigensolvers_tpu — a JAX targeted-eigensolver framework.
 
 Computes a few interior eigenpairs of huge Hermitian operators near a target
 energy, without diagonalizing directly.  Provides the same capabilities as the
@@ -7,15 +7,15 @@ Lanczos and the FEAST contour-integration eigensolver, written against an
 abstract vector contract so dense (JAX), mesh-sharded, and matrix-product-state
 backends all run through the same solver core.
 
-Design (TPU-first, not a port):
-  * compute path: jax / XLA / pallas — jitted batched Krylov linear solvers,
+Design (accelerator-first, not a port):
+  * compute path: jax / XLA — jitted batched Krylov linear solvers,
     matmul-formulated subspace assembly, SoP (sum-of-products) operator
     application as mode-wise ``dot_general`` instead of materialized matrices;
-  * distribution: ``jax.sharding.Mesh`` + collectives over ICI, replacing the
+  * distribution: ``jax.sharding.Mesh`` + XLA collectives, replacing the
     reference's (absent) MPI layer;
   * double precision is enabled on import: the linear-dependence thresholds of
     the solver contract (LINDEP_DEFAULT_VALUE = 1e-14) require float64.
-    Explicit float32/bfloat16 arrays remain in reduced precision for speed.
+    Explicit float32 arrays remain in reduced precision for speed.
 
 Algorithm semantics follow the reference implementation
 (/root/reference/inexact_Lanczos.py, /root/reference/feast.py); see the

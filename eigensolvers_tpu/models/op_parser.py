@@ -215,7 +215,7 @@ def build_sop_operator(spec: OpSpec, bases: Sequence[BasisBase],
     ``group_by_support=False`` for the plain stacked form.
 
     ``fuse`` (a target dimension, e.g. 256) coarsens the mode grid by
-    Kronecker-fusing consecutive modes into TPU-tile-sized super-modes
+    Kronecker-fusing consecutive modes into larger super-modes
     before grouping (see :func:`~eigensolvers_tpu.ops.operators.fuse_sop_terms`)
     — the dense/sharded fast path.  Leave unset for the MPS backend, whose
     site dimensions must stay physical."""

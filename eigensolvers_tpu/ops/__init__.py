@@ -1,4 +1,4 @@
-"""Operators and jitted compute kernels (the TPU hot path)."""
+"""Operators and jitted compute kernels (the device hot path)."""
 from .operators import (AbstractOperator, CallableOperator, DenseOperator,
                         DiagonalOperator, GroupedSoPOperator,
                         SumOfProductOperator, as_operator)

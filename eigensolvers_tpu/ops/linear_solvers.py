@@ -1,7 +1,7 @@
 """Jitted Krylov linear solvers for shifted systems (sigma*I - H) x = b.
 
 These replace the compiled SciPy solvers of the reference
-(minres/gcrotmk/spsolve, reference: numpyVector.py:161-171) with TPU-native
+(minres/gcrotmk/spsolve, reference: numpyVector.py:161-171) with jitted device
 implementations:
 
 * :func:`minres` — Hermitian (possibly indefinite) shifted solves; the default
@@ -9,7 +9,7 @@ implementations:
   is one XLA computation (no host round-trips per iteration).
 * :func:`gmres` — restarted GMRES for general/complex shifts (the role of the
   reference's ``gcrotmk``); each restart cycle is a fixed-shape Arnoldi
-  build (MXU-friendly (m, n) matmuls) followed by a small least-squares
+  build ((m, n) matmuls) followed by a small least-squares
   solve.
 * :func:`solve_exact` — dense direct solve; the honest name for the
   reference's ``"pardiso"`` option (which actually called SuperLU,
@@ -23,7 +23,7 @@ batched device computation.
 Optional Jacobi preconditioning (``precond="jacobi"``): M is built from
 diag(sigma*I - H) when the operator exposes ``diagonal()`` — absolute-value
 Jacobi for MINRES (M must be SPD for an indefinite system), plain right
-Jacobi for GMRES.  One VPU multiply per iteration for a often-large cut in
+Jacobi for GMRES.  One elementwise multiply per iteration for an often-large cut in
 iteration count on diagonally dominant Hamiltonians (DVR kinetic+potential,
 SoP molecular operators).
 
@@ -45,10 +45,10 @@ import numpy as np
 from .operators import AbstractOperator
 
 #: All solver-internal contractions (Lanczos/Arnoldi inner products, basis
-#: updates) run at true-f32 precision: a TPU MXU dot_general defaults to
-#: bf16 inputs (~3 lost decimal digits), which caps the attainable residual
-#: of the recurrences far above the f32 tolerance scale the eigensolvers
-#: request.  The operator matvec itself already pins its own precision
+#: updates) run at true-f32 precision: a default-precision f32 dot_general
+#: may multiply in TF32 on NVIDIA GPUs (10-bit mantissa, ~1e-3 relative per
+#: product), which caps the attainable residual of the recurrences far
+#: above the f32 tolerance scale the eigensolvers request.  The operator matvec itself already pins its own precision
 #: (ops/operators.py::resolve_precision).
 _HI = jax.lax.Precision.HIGHEST
 
@@ -197,7 +197,7 @@ def _gmres_fixed(matvec, b, x0, rtol, atol, restart, maxiter, psolve=None):
 
     def cycle(x):
         """One restart cycle: build a `restart`-step Arnoldi basis with CGS2
-        reorthogonalization (two (m, n) matmuls per step — MXU work, not m
+        reorthogonalization (two (m, n) matmuls per step, not m
         sequential dots), with the Hessenberg QR maintained incrementally by
         Givens rotations (numerically honest at f32; the earlier ridge-
         regularized normal equations squared the projected conditioning)."""
@@ -507,11 +507,11 @@ def solve_exact(op, b, sigma, reverseGF=False) -> SolveResult:
 
 def _sigma_array(sigma, *operand_dtypes):
     """Shift scalar at the precision of the operands: complex64 shifts on
-    f32 data (TPU has no c128), complex128 on f64; real shifts stay real."""
+    f32 data, complex128 on f64; real shifts stay real."""
     width = max(jnp.dtype(jnp.result_type(d)).itemsize
                 for d in operand_dtypes)
     # cast in numpy BEFORE the device transfer: a weak c128 scalar would
-    # otherwise be converted on-device, and TPUs have no c128 at all
+    # otherwise promote an f32 problem to c128 on the device
     if np.iscomplexobj(sigma) and np.imag(sigma) != 0:
         return jnp.asarray(
             np.asarray(sigma, np.complex64 if width <= 4 else np.complex128))
@@ -560,9 +560,9 @@ def solve_exact_batch(op, B, sigmas, reverseGF=False):
 
 
 # ----------------------------------------------------------------------------
-# Split-complex shifted solves — the TPU-native path for FEAST's complex
-# contour shifts (SURVEY.md §7 "complex shifted solves") on backends without
-# complex support.  For real symmetric H and sigma = a + ib the 2x2 real
+# Split-complex shifted solves — the all-real path for FEAST's complex
+# contour shifts (SURVEY.md §7 "complex shifted solves").  For real symmetric
+# H and sigma = a + ib the 2x2 real
 # block form of (sigma I - H) x = b,
 #     A_blk = [[aI - H, -bI], [bI, aI - H]],
 # is non-symmetric (restarted GMRES stagnates: its spectrum

@@ -1,4 +1,4 @@
-"""Operator abstractions for the TPU compute path.
+"""Operator abstractions for the device compute path.
 
 The reference passes raw ndarrays / scipy ``LinearOperator``s into the
 algorithms (reference: numpyVector.py:147-154, feast.py:256).  Here operators
@@ -6,8 +6,8 @@ are small JAX pytrees with a ``matvec`` method, so they can be closed over by
 ``jax.jit`` / ``vmap`` / ``shard_map`` without retracing, and so the same
 operator object drives the dense, sharded, and MPS backends.
 
-* :class:`DenseOperator` — explicit (n, n) matrix; matvec is an MXU matmul.
-* :class:`DiagonalOperator` — diagonal matrix; matvec is a VPU multiply.
+* :class:`DenseOperator` — explicit (n, n) matrix; matvec is one matmul.
+* :class:`DiagonalOperator` — diagonal matrix; matvec is an elementwise multiply.
 * :class:`SumOfProductOperator` — H = Σ_s c_s ⊗_d A^{(d,s)}; matvec is a
   batched sequence of mode-wise ``dot_general`` contractions.  This is the
   TTNS-free way to apply product-basis Hamiltonians (e.g. MCTDH-style .op
@@ -26,13 +26,14 @@ import numpy as np
 
 
 def resolve_precision(p):
-    """Matmul precision for f32 operator applications.  TPU MXUs multiply
-    f32 via bfloat16 passes: "default" is one pass (~1e-4..1e-3 relative
-    matvec error), "high" three (bf16x3, ~1e-5), "highest" six (true f32,
-    ~1e-7).  An eigensolver's matvec IS the operator definition — silently
-    bf16-flooring it caps every solve tolerance and eigenvalue residual —
-    so the framework default is "highest"; pass precision="default" where
-    ML-grade accuracy is acceptable and the op is MXU-bound."""
+    """Matmul precision for f32 operator applications.  "highest" is true
+    f32 (~1e-7 relative matvec error).  "default" and "high" let XLA use
+    faster reduced-precision products — on NVIDIA GPUs, TF32 tensor-core
+    products (10-bit mantissa, ~1e-4..1e-3 relative matvec error).  An
+    eigensolver's matvec IS the operator definition — silently flooring it
+    at TF32 caps every solve tolerance and eigenvalue residual — so the
+    framework default is "highest"; pass precision="default" where ML-grade
+    accuracy is acceptable and the op is compute-bound."""
     if p is None or isinstance(p, jax.lax.Precision):
         return p
     return {"default": jax.lax.Precision.DEFAULT,
@@ -89,7 +90,7 @@ class DenseOperator(AbstractOperator):
 
     def matvec(self, x):
         flat = x.reshape(-1)
-        # preferred_element_type keeps the MXU accumulating at (at least)
+        # preferred_element_type keeps the product accumulating at (at least)
         # the input precision; the multiply precision is the operator's
         # (see resolve_precision — "highest" = true f32 by default).
         y = jnp.dot(self.mat, flat.astype(jnp.result_type(self.mat, flat)),
@@ -116,7 +117,7 @@ class DenseOperator(AbstractOperator):
 
 @jax.tree_util.register_pytree_node_class
 class DiagonalOperator(AbstractOperator):
-    """Diagonal operator; matvec is elementwise (VPU)."""
+    """Diagonal operator; matvec is elementwise."""
 
     def __init__(self, diag):
         self.diag = jnp.asarray(diag).reshape(-1)
@@ -157,7 +158,7 @@ class SumOfProductOperator(AbstractOperator):
     Stored as per-mode stacked factor tensors ``factors[d]`` of shape
     (nSum, n_d, n_d), so a matvec is, for each mode d, one batched
     ``dot_general`` over the term axis — large, static-shaped contractions
-    that XLA tiles onto the MXU.  Memory: the batched intermediate is
+    that XLA tiles onto matmul units.  Memory: the batched intermediate is
     (nSum, n) — use ``term_chunk`` to bound it for large grids.
 
     Role parity: the SoP operators of the reference's TTNS tests
@@ -482,22 +483,21 @@ def fuse_sop_terms(dims: Sequence[int], terms, target: int = 256):
     """Coarsen a sum-of-products term list by fusing consecutive modes into
     super-modes of dimension ~``target``.
 
-    TPU arrays tile as (8, 128) f32; a mode dimension like 14 (CH3CN HO-FBR
-    cut) uses 14/128 of each lane tile, so per-mode contractions of a
-    (..., 14)-shaped state waste ~9x of both bandwidth and MXU rows.  Fusing
-    mode pairs (14x14 -> 196) puts every contraction at >=128-lane shapes:
-    each term's factor on a super-mode is the Kronecker product of its
-    per-mode factors (identity for inactive modes *within an active
-    super-mode*; super-modes with no active mode stay absent, so the
-    grouped-apply FLOP saving survives).  More FLOPs per contraction
-    (2*n*196 vs 2*n*14), but the apply is bandwidth-bound two orders of
-    magnitude below the MXU roofline, so trading FLOPs for tile-aligned
-    layouts wins (measured ~6x on the CH3CN 6-mode cut; see bench.py).
+    A mode dimension like 12 or 14 (CH3CN HO-FBR cuts) makes every
+    per-mode contraction a pass over the whole state with a tiny inner
+    dimension.  Fusing consecutive modes (12x12 -> 144) gives fewer, wider
+    contractions: each term's factor on a super-mode is the Kronecker
+    product of its per-mode factors (identity for inactive modes *within
+    an active super-mode*; super-modes with no active mode stay absent, so
+    the grouped-apply FLOP saving survives).  More FLOPs per contraction
+    (2*n*144 vs 2*n*12), fewer passes over the state.  On an H100 80GB
+    HBM3 at a 700 W power limit, the CH3CN 7-mode N=12 cut (35.8M states,
+    f32) applies in 59.5 ms fused at 256 vs 69.1 ms unfused (PERF.md).
 
     :param dims: per-mode dimensions
     :param terms: list of (coeff, {mode_index: matrix})
     :param target: aim for fused dimensions <= max(target, largest single
-        mode); 128..512 are sensible on TPU
+        mode)
     :returns: (fused_dims, fused_terms, partition) — partition is the list
         of original-mode index groups, for callers that need to map back
     """

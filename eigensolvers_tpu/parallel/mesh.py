@@ -2,7 +2,7 @@
 
 This is the framework's distributed-communication layer — the component the
 reference lacks entirely (its only trace is an inert MPI import,
-SURVEY.md §2.4): JAX collectives over ICI (intra-slice) / DCN (multi-slice)
+SURVEY.md §2.4): XLA collectives across devices (NVLink within a host)
 replace MPI, driven by shardings on a ``jax.sharding.Mesh``.
 
 Mesh convention used throughout:
@@ -39,8 +39,7 @@ def make_mesh(batch: int = 1, shard: Optional[int] = None,
 def distributed_initialize(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None):
-    """Multi-host bring-up (one JAX process per host, ICI within a slice,
-    DCN across).  Thin wrapper so drivers never import jax.distributed
+    """Multi-host bring-up (one JAX process per host).  Thin wrapper so drivers never import jax.distributed
     directly; no-op when running single-process."""
     if num_processes is None or num_processes <= 1:
         return
@@ -65,6 +64,6 @@ def batched_vector_sharding(mesh: Mesh, ndim: int = 1) -> NamedSharding:
 
 def operator_row_sharding(mesh: Mesh) -> NamedSharding:
     """Row-partition an (n, n) operator over mesh axis "x": each device owns
-    a block of rows; the matvec all-gathers x over ICI and keeps the product
+    a block of rows; the matvec all-gathers x and keeps the product
     row-sharded (SURVEY.md §2.4 item 1)."""
     return NamedSharding(mesh, P("x", None))

@@ -5,7 +5,7 @@ axis); operators are row-partitioned to match.  All solver code is inherited
 unchanged from :class:`JaxVector`: the jitted kernels are pure jnp programs,
 so under GSPMD the compiler partitions them across the mesh and inserts the
 collectives (all-gather of x for the row-sharded matvec, psum for the inner
-products) — the TPU-native replacement for an MPI layer (SURVEY.md §2.4).
+products) — the XLA replacement for an MPI layer (SURVEY.md §2.4).
 
 This backend fills the scalability role that TTNS compression plays in the
 reference (SURVEY.md §5 "long-context analogue"): where the reference shrinks

@@ -7,7 +7,7 @@ written out BY HAND — the "pick a mesh, annotate, place the collective
 yourself" recipe — for the cases where explicit control beats the
 partitioner:
 
-* pinning the schedule: ``all_gather`` of x over the mesh's "x" axis (ICI),
+* pinning the schedule: ``all_gather`` of x over the mesh's "x" axis,
   then a purely local row-block matmul, result left row-sharded — exactly
   one collective per matvec, guaranteed, regardless of what surrounding
   fusion XLA considers;
@@ -37,7 +37,7 @@ def row_matvec(mesh: Mesh, precision=jax.lax.Precision.HIGHEST):
 
     Returns ``mv(H_rows, x)`` where ``H_rows`` is the (n, n) matrix
     row-sharded P("x", None) and ``x`` the state sharded P("x").  Schedule:
-    ``all_gather(x, "x")`` over ICI (one collective), local
+    ``all_gather(x, "x")`` (one collective), local
     (n/k, n) @ (n,) matmul on each device, output stays P("x").
     """
 
@@ -45,7 +45,7 @@ def row_matvec(mesh: Mesh, precision=jax.lax.Precision.HIGHEST):
         jax.shard_map, mesh=mesh,
         in_specs=(P("x", None), P("x")), out_specs=P("x"))
     def mv(H_blk, x_blk):
-        xg = jax.lax.all_gather(x_blk, "x", tiled=True)     # full x, via ICI
+        xg = jax.lax.all_gather(x_blk, "x", tiled=True)     # full x
         return jnp.dot(H_blk, xg, precision=precision,
                        preferred_element_type=jnp.result_type(H_blk, xg))
 

@@ -17,7 +17,7 @@ Baiardi, Kelemen, Reiher JCTC 18, 1415 (2021)):
   * residual over [eMin, eMax] with subspace-shrink matching
     (reference: feast.py:218-232).
 
-TPU restructuring: the quadrature × subspace double loop (nc/2 × m0
+Device restructuring: the quadrature × subspace double loop (nc/2 × m0
 independent shifted solves per FEAST iteration, reference: feast.py:189-200)
 runs as ONE batched device computation through the backend's ``solveBatch``
 (SURVEY.md §3.2 "prime batching target").
@@ -108,7 +108,7 @@ def _use_split_complex(A, Y):
     backend implements them — on every platform.  The J-symmetrized real-block
     MINRES is the better algorithm for a complex shift on a real symmetric
     operator (conditioning ~|sigma-lam|, short recurrence, no restart
-    stagnation), not just a workaround for complex-free TPUs; restarted GMRES
+    stagnation), not just a workaround for complex-free devices; restarted GMRES
     on the complex system stagnates at contour nodes near the real axis.
     Override via linearSystemArgs["splitComplex"]; exact (direct) solves
     bypass it."""
@@ -419,7 +419,7 @@ def feastDiagonalization(A, Y: List[AbstractVector],
         error at a declared 1e-6 residual vs 1.5e-6 cold (cold solves
         re-roll their noise every iteration, which Rayleigh-Ritz averages
         down).  The periodic cold solve re-rolls that noise so the floor is
-        averaged down.  Measured (n=2048 window bench config, f32, TPU):
+        averaged down.  On the n=2048 window bench config in f32:
         auto matches cold's accuracy (1.6e-6 vs always-warm's frozen
         2.3e-4) at cold's cost; a wall-clock win from f32 warm starts does
         NOT materialize because a MINRES warm start at unchanged rtol exits

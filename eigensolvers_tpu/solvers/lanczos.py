@@ -11,7 +11,7 @@ contract constants: zero-vector threshold ``0.001*eConv``
 limit 3 with improvement threshold ``max(1e-9, eConv)``
 (reference: inexact_Lanczos.py:167-194).
 
-TPU restructurings (not semantics changes):
+Device restructurings (not semantics changes):
   * the nBlock solves of one Krylov step run as ONE batched device
     computation when the backend provides ``solveBatch``
     (reference loops them, inexact_Lanczos.py:319-325);
@@ -62,7 +62,7 @@ def generateSubspace(Hop, vec, sigma, eConv):
 
 def generateSubspaceBlock(Hop, vecs: List, sigma, eConv):
     """Batched Krylov step for nBlock vectors: one device computation for all
-    shifted solves (TPU-first replacement for the reference's per-block loop,
+    shifted solves (batched replacement for the reference's per-block loop,
     inexact_Lanczos.py:319-325).
 
     :returns: (list of new vectors, nonzero flag)  — mirrors the reference's
@@ -188,7 +188,7 @@ def inexactLanczosDiagonalization(
         ``saveTNSsEachIteration``, TTNS-only there)
     saveDir : checkpoint directory
     batchBlockSolves : run the nBlock solves of one step as a single batched
-        device computation (TPU fast path; set False to force the reference's
+        device computation (the fast path; set False to force the reference's
         sequential order)
     thickRestart : restart with the nBlock tracked Ritz vectors PLUS extra
         retained Ritz columns and the residual-carrying last basis vector

@@ -93,11 +93,10 @@ def block_krylov_step(op, V, nvec, seeds, sigma, rtol, maxiter=200,
     row_ids = jnp.arange(M)
     mask = (row_ids < nvec).astype(V.dtype)
     X = xs.astype(V.dtype)
-    # ALL matmuls pin HIGHEST precision: the TPU MXU's bf16-input default
-    # loses ~3 decimal digits, which the CholQR Gram cannot afford (its
-    # conditioning is the square of the basis conditioning; measured: the
-    # unpinned version converged on CPU but failed the headline accuracy
-    # gate on a v5e).
+    # ALL matmuls pin HIGHEST precision: a default-precision f32 matmul may
+    # run in TF32 on NVIDIA GPUs (~1e-3 relative per product), which the
+    # CholQR Gram cannot afford (its conditioning is the square of the basis
+    # conditioning).
     for _ in range(2):                     # CGS2 against the existing basis
         Hproj = jnp.matmul(V.conj(), X.T, precision=_HI) * mask[:, None]
         X = X - jnp.matmul(V.T, Hproj, precision=_HI).T   # one all-reduce

@@ -123,7 +123,7 @@ def basisTransformation(bases: Sequence, coeffs: np.ndarray) -> List:
     else:
         batch = getattr(typeClass, "linearCombinationBatch", None)
         if batch is not None:
-            # dense/sharded backends: all k combinations in one MXU matmul
+            # dense/sharded backends: all k combinations in one matmul
             return batch(list(bases), coeffs)
         for j in range(coeffs.shape[1]):
             out.append(typeClass.linearCombination(list(bases), coeffs[:, j]))

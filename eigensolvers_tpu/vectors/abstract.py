@@ -8,7 +8,7 @@ solver code.  Concrete backends:
   * :class:`~eigensolvers_tpu.vectors.dense.JaxVector` — dense jnp array,
     single device (or auto-sharded), batched JAX Krylov solvers;
   * :class:`~eigensolvers_tpu.parallel.sharded.ShardedVector` — explicitly
-    mesh-sharded array, collectives over ICI;
+    mesh-sharded array, XLA collectives across devices;
   * :class:`~eigensolvers_tpu.vectors.mps.MPSVector` — matrix-product state,
     the compressible/inexact backend (fills the role of the reference's
     external TTNS backend, reference: ttnsVector.py).
@@ -163,7 +163,7 @@ class AbstractVector(ABC):
                    rtol_scale: float = 1.0, report=None):
         """Solve a batch of shifted systems (sigmas[k]*I - H) x_k = bs[k].
 
-        TPU-first extension of the contract: FEAST's quadrature×subspace loop
+        Device-first extension of the contract: FEAST's quadrature×subspace loop
         (reference: feast.py:189-200) and block-Lanczos' block loop
         (reference: inexact_Lanczos.py:319-325) are embarrassingly parallel
         across shifts/right-hand sides; batched backends override this with a

@@ -1,11 +1,11 @@
-"""JaxVector — the dense JAX/TPU backend of the AbstractVector contract.
+"""JaxVector — the dense JAX backend of the AbstractVector contract.
 
 Role parity with the reference's dense backend (reference: numpyVector.py),
 re-designed for XLA:
 
 * every heavy operation is a jitted, statically-shaped device computation;
 * subspace assembly (overlap / operator matrices) is formulated as (m, n)
-  matmuls on the MXU instead of m^2 host-looped dots
+  matmuls instead of m^2 host-looped dots
   (reference: numpyVector.py:180-203 loops vdots);
 * Gram-Schmidt orthogonalization is a ``lax.scan`` over a padded, stacked
   basis (one device program instead of m Python-level dot/axpy pairs);
@@ -37,9 +37,9 @@ from ..ops.operators import as_operator
 from ..ops import linear_solvers as ls
 
 #: Subspace-algebra contractions (overlap/operator matrices, Gram-Schmidt
-#: dots, linear combinations) run at true-f32 precision: the TPU MXU's
-#: default bf16-input dot loses ~3 decimal digits, which the Rayleigh-Ritz
-#: and lindep thresholds cannot afford.  Same convention as the operator
+#: dots, linear combinations) run at true-f32 precision: a default-precision
+#: f32 dot may run in TF32 on NVIDIA GPUs (~1e-3 relative per product),
+#: which the Rayleigh-Ritz and lindep thresholds cannot afford.  Same convention as the operator
 #: matvec (ops/operators.py::resolve_precision, default "highest").
 _HI = jax.lax.Precision.HIGHEST
 
@@ -48,9 +48,8 @@ def _pad_rows(m: int) -> int:
     """Zero-pad row count: next power of two >= max(m, 32).
 
     The growing Krylov basis then hits very few distinct compiled shapes
-    (32, 64, 128, ...), which matters doubly on remote-compile platforms
-    where every new shape costs a compile round-trip.  The wasted rows are
-    zeros (self-guarded in the kernels) and cost ~nothing on the MXU.
+    (32, 64, 128, ...), so a growing basis compiles O(log m) programs, not
+    m.  The wasted rows are zeros (self-guarded in the kernels).
     """
     p = 32
     while p < m:
@@ -67,14 +66,31 @@ def _overlap_kernel(V):
     return jnp.matmul(V.conj(), V.T, precision=_HI)
 
 
+#: Input bytes per vectorized chunk when the operator is applied to every
+#: row of a stacked basis: a vmap over all rows would hold the operator's
+#: intermediates for every row at once (for a sum-of-products operator,
+#: terms x rows x n elements), which does not fit on one device once a
+#: state is hundreds of MB.
+_APPLY_CHUNK_BYTES = 256 * 2**20
+
+
+def _apply_rows(op, V):
+    """op applied to every row of V (m, n), vectorized over chunks of rows
+    that hold at most ``_APPLY_CHUNK_BYTES`` of input (all rows at once for
+    small states)."""
+    row_bytes = V[0].size * V.dtype.itemsize
+    chunk = max(1, min(V.shape[0], _APPLY_CHUNK_BYTES // max(row_bytes, 1)))
+    return jax.lax.map(op.matvec, V, batch_size=chunk)
+
+
 @jax.jit
 def _apply_batch(op, V):
-    return jax.vmap(op.matvec)(V)
+    return _apply_rows(op, V)
 
 
 @jax.jit
 def _matrep_kernel(op, V):
-    AV = jax.vmap(op.matvec)(V)
+    AV = _apply_rows(op, V)
     return jnp.matmul(V.conj(), AV.T, precision=_HI)
 
 
@@ -316,7 +332,7 @@ class JaxVector(AbstractVector):
     def linearCombinationBatch(cls, vectors: List["JaxVector"],
                                coeffs) -> List["JaxVector"]:
         """All k combinations of an (m, k) coefficient matrix in ONE device
-        matmul (MXU) instead of k separate kernel dispatches — the fast path
+        matmul instead of k separate kernel dispatches — the fast path
         under basisTransformation's 2-D case (FEAST's per-iteration subspace
         rotation, reference feast.py:215)."""
         coeffs = np.asarray(coeffs)
@@ -442,7 +458,7 @@ class JaxVector(AbstractVector):
                         report: Optional[dict] = None):
         """Batched complex-shifted solves of a REAL operator without any
         complex dtype on device (split-complex 2x2 real-block GMRES; the
-        TPU-native path for FEAST contour shifts).  ``x0s`` warm starts: a
+        all-real path for FEAST contour shifts).  ``x0s`` warm starts: a
         list of vectors with real (n,) arrays, or a raw (nlanes, 2, n)
         split-guess stack (Re, Im — e.g. FEAST's Ritz warm starts).
         A caller-passed ``report`` dict accumulates "iterations" (summed
@@ -510,8 +526,7 @@ class JaxVector(AbstractVector):
     def _solve_dtype(op, sigma, *vec_dtypes):
         """Solve dtype: the DATA (operator/vector) dtype decides precision;
         the shift only decides complexness (weak-scalar rule — a Python
-        complex sigma must not upcast an f32 problem to c128, which TPUs
-        do not support)."""
+        complex sigma must not upcast an f32 problem to c128)."""
         base = np.result_type(np.dtype(op.dtype), *vec_dtypes)
         if np.iscomplexobj(np.asarray(sigma)):
             return np.result_type(base, np.complex64)
@@ -615,7 +630,7 @@ class JaxVector(AbstractVector):
                 f"(alias gcrotmk), exact (alias pardiso)")
 
         # one host transfer for the three convergence scalars (each separate
-        # fetch is a full round trip on remote-executor TPU platforms)
+        # fetch is a host synchronization)
         conv, resnorm, iters = jax.device_get(
             (res.converged, res.resnorm, res.iterations))
         if not bool(conv):
@@ -689,7 +704,7 @@ class JaxVector(AbstractVector):
             res = fn(op, B, jnp.asarray(sig, dtype), x0s=X0, **kwargs)
             xs = list(res.x)[:nl]  # drop divisibility-padding lanes
             # fetch the per-lane convergence data in ONE transfer, not 3 per
-            # lane (remote platforms pay a full round trip per fetch)
+            # lane (each fetch is a host synchronization)
             conv_a, resn_a, its_a = jax.device_get(
                 (res.converged, res.resnorm, res.iterations))
             conv = [bool(c) for c in conv_a[:nl]]

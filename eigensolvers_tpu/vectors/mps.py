@@ -24,7 +24,7 @@ sequential chains of sub-millisecond small-tensor ops with data-dependent
 (truncation-chosen) shapes — on an accelerator each op pays dispatch latency
 and every new bond-dimension combination a fresh compile, so XLA placement
 is strictly slower until bond dimensions reach O(10^3); the f64 precision
-the 1e-14 lindep contract needs is also native here.  The TPU answer to
+the 1e-14 lindep contract needs is also native here.  The device answer to
 problems beyond host scale is not this backend but the sharded uncompressed
 one (parallel/sharded.py) — same role split as the reference, whose TTNS
 sweeps are likewise CPU code (SURVEY.md §2.2).

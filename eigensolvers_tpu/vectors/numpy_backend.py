@@ -4,7 +4,7 @@ Role parity with the reference's dense backend (reference: numpyVector.py):
 a plain-CPU implementation used for (a) environments without an accelerator,
 (b) cross-checking the JAX backends, and (c) the benchmark baseline — it is
 the "reference-native stack" (numpy + compiled SciPy Krylov solvers) that
-``bench.py`` compares the TPU path against.
+``bench.py`` compares the device path against.
 
 Structured like :class:`~eigensolvers_tpu.vectors.dense.JaxVector` (stacked-
 basis matmul formulations, classmethod collectives) rather than like the

@@ -36,6 +36,7 @@ import numpy as np
 
 def main():
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import feastDiagonalization, select_within_range
     from eigensolvers_tpu.models.molecules import ch3cn_operator

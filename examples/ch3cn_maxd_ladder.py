@@ -54,6 +54,7 @@ def _state_path(N, D):
 
 def main():
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu.models.molecules import ch3cn_operator
     from eigensolvers_tpu.utils.units import au2unit

@@ -67,6 +67,7 @@ def _state_path(N):
 
 def main():
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import inexactLanczosDiagonalization, find_nearest
     from eigensolvers_tpu.models.molecules import ch3cn_operator

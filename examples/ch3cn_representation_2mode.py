@@ -39,6 +39,7 @@ def two_mode_dense(N, representation):
     """Dense 2-mode-cut Hamiltonian (N^2 x N^2) in the given
     representation."""
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu.models.molecules import ch3cn_operator
 
@@ -86,6 +87,7 @@ def main():
     # DVR anomaly must enter through higher-mode couplings.  DMRG at
     # maxD=64 is numerically exact for these small cuts.
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu.models.molecules import ch3cn_operator
     from eigensolvers_tpu.vectors.mps import MPO

@@ -35,6 +35,7 @@ LOG = os.path.join(ART, "ch3cn_production.jsonl")
 
 def main():
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu.models.molecules import ch3cn_operator
     from eigensolvers_tpu.utils.units import au2unit

@@ -48,6 +48,7 @@ def embed_mps(tensors, n_new):
 
 def main():
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import inexactLanczosDiagonalization, find_nearest
     from eigensolvers_tpu.models.molecules import ch3cn_operator

@@ -19,7 +19,7 @@ import scipy.linalg as la
 
 def main():
     import jax
-    if "--tpu" not in _sys.argv:
+    if "--cpu" in _sys.argv:
         jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import (JaxVector, chebyshevFilteredDiagonalization,
                                   select_within_range)

@@ -21,12 +21,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--large", action="store_true",
                     help="n=2500 config (reference 'largerDenserSpetra')")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the accelerator (default: CPU, so the demo "
-                         "works anywhere)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: JAX's default backend)")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
 

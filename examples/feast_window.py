@@ -17,7 +17,8 @@ import scipy.linalg as la
 
 def main():
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    if "--cpu" in _sys.argv:
+        jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import (JaxVector, feastDiagonalization,
                                   select_within_range)
     from eigensolvers_tpu.models.synthetic import known_spectrum_matrix

@@ -19,7 +19,8 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    if "--cpu" in _sys.argv:
+        jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import (JaxVector, inexactLanczosDiagonalization,
                                   find_nearest)
     from eigensolvers_tpu.models.molecules import pyrazine4_operator

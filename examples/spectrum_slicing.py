@@ -20,7 +20,8 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    if "--cpu" in _sys.argv:
+        jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import spectrumSlicingDiagonalization
     from eigensolvers_tpu.models.synthetic import known_spectrum_matrix
 

@@ -17,7 +17,8 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_platforms", "cpu")
+    if "--cpu" in _sys.argv:
+        jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import (JaxVector, inexactLanczosDiagonalization,
                                   find_nearest, get_pick_function_maxOvlp)
     from eigensolvers_tpu.models.bases import SincInfInf

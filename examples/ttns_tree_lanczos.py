@@ -22,6 +22,7 @@ import numpy as np
 
 def main():
     import jax
+    # host-NumPy tensor networks: keep JAX off the GPU and its memory
     jax.config.update("jax_platforms", "cpu")
     from eigensolvers_tpu import (SumOfProductOperator, TTNSVector,
                                   inexactLanczosDiagonalization,

@@ -95,7 +95,7 @@ def test_eigenvectors(problem):
 
 def test_feast_split_complex_matches_complex_path(problem):
     """The split-complex (all-real J-symmetrized MINRES) quadrature path —
-    the TPU-native route for backends without complex support — must
+    the default route for real symmetric operators — must
     reproduce the complex-arithmetic path's eigenvalues."""
     p = problem
 

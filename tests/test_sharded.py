@@ -254,8 +254,8 @@ def test_batch_chunking(problem):
 
 
 def test_sharded_feast_split_complex(mesh):
-    """Forced split-complex FEAST through the sharded backend (the TPU route:
-    split path auto-selects on non-CPU platforms) — regression for the (2, n)
+    """Forced split-complex FEAST through the sharded backend (the default
+    route for real operators) — regression for the (2, n)
     Re/Im intermediates, which are raw arrays, not sharded states."""
     n = 96
     ev = np.linspace(1, 200, n)

@@ -82,7 +82,7 @@ def test_lanczos_preserves_tensor_shape(sop):
 
 
 def test_fuse_sop_terms_matches_unfused(sop):
-    """Mode fusion (TPU tile-size coarsening) is exact: fused matvec,
+    """Mode fusion (super-mode coarsening) is exact: fused matvec,
     diagonal, and dense form all match the physical-mode operator."""
     from eigensolvers_tpu.ops.operators import (GroupedSoPOperator,
                                                 fuse_sop_terms)

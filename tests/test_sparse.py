@@ -20,8 +20,7 @@ def _banded(n, bw=3, seed=0):
 
 def test_from_dense_matches():
     H = _banded(200, bw=5)
-    op = BSROperator.from_dense(H, block_size=32, drop_tol=0.0,
-                                use_pallas=False)
+    op = BSROperator.from_dense(H, block_size=32, drop_tol=0.0)
     rng = np.random.RandomState(1)
     x = rng.rand(200)
     np.testing.assert_allclose(np.asarray(op.matvec(x)), H @ x, atol=1e-11)
@@ -30,7 +29,7 @@ def test_from_dense_matches():
 
 def test_from_scipy_matches():
     H = sp.csr_matrix(_banded(150, bw=2))
-    op = BSROperator.from_scipy(H, block_size=64, use_pallas=False)
+    op = BSROperator.from_scipy(H, block_size=64)
     rng = np.random.RandomState(2)
     x = rng.rand(150)
     np.testing.assert_allclose(np.asarray(op.matvec(x)),
@@ -39,7 +38,7 @@ def test_from_scipy_matches():
 
 def test_drop_tol_sparsifies():
     H = _banded(128, bw=1)
-    dense_blocks = BSROperator.from_dense(H, block_size=32, use_pallas=False)
+    dense_blocks = BSROperator.from_dense(H, block_size=32)
     # bandwidth 1 with block 32 → at most 2-3 blocks per row-block kept
     assert dense_blocks.data.shape[1] <= 3
 
@@ -50,7 +49,7 @@ def test_lanczos_on_sparse():
     H = _banded(n, bw=4, seed=3)
     evE = np.linalg.eigvalsh(H)
     target = float(evE[n // 2] + 0.2 * (evE[n // 2 + 1] - evE[n // 2]))
-    op = BSROperator.from_dense(H, block_size=64, use_pallas=False)
+    op = BSROperator.from_dense(H, block_size=64)
     rng = np.random.RandomState(4)
     opts = {"linearSystemArgs": {"linearSolver": "minres", "linearIter": 4000,
                                  "linear_tol": 1e-4,
@@ -63,31 +62,11 @@ def test_lanczos_on_sparse():
     assert abs(got - want) <= 1e-5
 
 
-def test_pallas_kernel_interpret_mode():
-    """Validate the Pallas BSR kernel logic in interpreter mode (the suite
-    runs on the CPU mesh; the same kernel compiles and validates on real TPU
-    via use_pallas=True — traced with x64 disabled to work around a Mosaic
-    AOT index-type bug, see _bsr_matvec_pallas)."""
-    import jax.numpy as jnp
-    from eigensolvers_tpu.ops.sparse import (_bsr_matvec_pallas,
-                                             _bsr_matvec_xla)
-    rng = np.random.RandomState(0)
-    nrb, nbpr, B = 4, 3, 128
-    data = rng.standard_normal((nrb, nbpr, B, B))
-    idx = rng.randint(0, nrb, (nrb, nbpr)).astype(np.int32)
-    x = rng.standard_normal(nrb * B)
-    y_ref = np.asarray(_bsr_matvec_xla(jnp.asarray(data), jnp.asarray(idx),
-                                       jnp.asarray(x)))
-    y_pl = np.asarray(_bsr_matvec_pallas(jnp.asarray(data), jnp.asarray(idx),
-                                         jnp.asarray(x), interpret=True))
-    np.testing.assert_allclose(y_pl, y_ref, atol=1e-10)
-
-
 def test_matmat_multi_rhs():
     """Fused multi-RHS apply (block data fetched once, reused over all
     columns) matches column-wise matvecs, including non-divisible n."""
     H = _banded(200, bw=5, seed=7)
-    op = BSROperator.from_dense(H, block_size=64, use_pallas=False)
+    op = BSROperator.from_dense(H, block_size=64)
     rng = np.random.RandomState(8)
     X = rng.rand(200, 5)
     Y = np.asarray(op.matmat(X))
@@ -96,27 +75,6 @@ def test_matmat_multi_rhs():
     from eigensolvers_tpu.ops.operators import DenseOperator
     np.testing.assert_allclose(np.asarray(DenseOperator(H).matmat(X)),
                                H @ X, atol=1e-11)
-
-
-def test_custom_vmap_reroutes_batched_matvec():
-    """vmap over the dispatch wrapper must hit the einsum matmat rule (not a
-    batched Pallas launch) and agree with per-lane matvecs.  This is the
-    path batched shifted solves (FEAST lanes / block Lanczos) take when the
-    Pallas default is active on TPU."""
-    import jax
-    import jax.numpy as jnp
-    from eigensolvers_tpu.ops.sparse import (_bsr_matvec_best,
-                                             _bsr_matvec_xla)
-    rng = np.random.RandomState(3)
-    nrb, nbpr, B, m = 4, 2, 128, 6
-    data = jnp.asarray(rng.standard_normal((nrb, nbpr, B, B)))
-    idx = jnp.asarray(rng.randint(0, nrb, (nrb, nbpr)).astype(np.int32))
-    V = jnp.asarray(rng.standard_normal((m, nrb * B)))
-    # the batching rule routes to _bsr_matmat_xla, so this runs on any
-    # platform (the unbatched pallas branch is never traced here)
-    got = np.asarray(jax.vmap(lambda v: _bsr_matvec_best(data, idx, v))(V))
-    want = np.stack([np.asarray(_bsr_matvec_xla(data, idx, v)) for v in V])
-    np.testing.assert_allclose(got, want, atol=1e-10)
 
 
 def test_as_operator_accepts_scipy_sparse():
@@ -159,51 +117,82 @@ def test_banded_operator():
     assert abs(find_nearest(evL, target)[1] - evE[6]) <= 1e-6
 
 
-def test_split_kernel_interpret_f32_grade():
-    """The bf16x3 ("high" precision) Pallas kernel must reproduce the f32
-    matvec to f32-grade accuracy (error comparable to host-f32 arithmetic,
-    NOT the ~1e-4 of a single bf16 pass) — validated in interpreter mode."""
-    import jax.numpy as jnp
-    from eigensolvers_tpu.ops.sparse import _bsr_matvec_pallas_split
-    rng = np.random.RandomState(3)
-    nrb, nbpr, B = 4, 3, 128
-    data = rng.standard_normal((nrb, nbpr, B, B)).astype(np.float32)
-    idx = rng.randint(0, nrb, (nrb, nbpr)).astype(np.int32)
-    x = rng.standard_normal(nrb * B).astype(np.float32)
-    dT = np.swapaxes(data, 2, 3)
-    hiT = jnp.asarray(dT).astype(jnp.bfloat16)
-    loT = (jnp.asarray(dT) - hiT.astype(jnp.float32)).astype(jnp.bfloat16)
-    y = np.asarray(_bsr_matvec_pallas_split(hiT, loT, jnp.asarray(idx),
-                                            jnp.asarray(x), interpret=True))
-    # f64 oracle + f32 host floor
-    y64 = np.zeros(nrb * B)
-    x64 = x.astype(np.float64)
-    for r in range(nrb):
-        for t in range(nbpr):
-            c = idx[r, t]
-            y64[r*B:(r+1)*B] += data[r, t].astype(np.float64) @ x64[c*B:(c+1)*B]
-    sc = np.abs(y64).max()
-    err = np.abs(y - y64).max() / sc
-    assert err < 1e-5, err
-
-
 def test_bsr_precision_option_roundtrip():
     """precision is part of the operator's static (aux) data: it must
-    survive pytree flatten/unflatten (jit closures) and change the
-    dispatch."""
+    survive pytree flatten/unflatten (jit closures) and reach the einsum
+    of the compiled apply."""
     import jax
     H = _banded(256, bw=3, seed=2)
+    x = np.random.RandomState(0).rand(256).astype(np.float32)
     for prec in ("default", "high", "highest"):
         op = BSROperator.from_dense(H.astype(np.float32), block_size=128,
-                                    use_pallas=False, precision=prec)
+                                    precision=prec)
         leaves, treedef = jax.tree_util.tree_flatten(op)
         op2 = jax.tree_util.tree_unflatten(treedef, leaves)
         assert op2.precision == op.precision
-        x = np.random.RandomState(0).rand(256).astype(np.float32)
         np.testing.assert_allclose(np.asarray(op2.matvec(x)),
                                    H.astype(np.float32) @ x, rtol=2e-4,
                                    atol=1e-3)
-        if prec == "high":
-            assert op.dataT_hi is not None and op.dataT_lo is not None
+        hlo = jax.jit(op2.matvec).lower(x).as_text()
+        if prec == "default":
+            assert "precision = [HIGH" not in hlo
         else:
-            assert op.dataT_hi is None
+            assert f"precision = [{prec.upper()}," in hlo, prec
+
+
+def _block_sparse_csr(n, B, nbpr, dtype, seed):
+    """Random scipy CSR matrix with ``nbpr`` dense BxB blocks per block-row
+    (the last block-row/column cut to n when B does not divide n)."""
+    rng = np.random.RandomState(seed)
+    nrb = -(-n // B)
+    H = np.zeros((nrb * B, nrb * B), dtype)
+    for r in range(nrb):
+        for c in rng.choice(nrb, nbpr, replace=False):
+            blk = rng.standard_normal((B, B))
+            if np.issubdtype(dtype, np.complexfloating):
+                blk = blk + 1j * rng.standard_normal((B, B))
+            H[r * B:(r + 1) * B, c * B:(c + 1) * B] = blk
+    return sp.csr_matrix(H[:n, :n])
+
+
+def _rand(shape, dtype, rng):
+    x = rng.standard_normal(shape)
+    if np.issubdtype(dtype, np.complexfloating):
+        x = x + 1j * rng.standard_normal(shape)
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("n", [256, 200], ids=["divisible", "ragged"])
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-5),
+                                        (np.float64, 1e-12),
+                                        (np.complex128, 1e-12)])
+def test_bsr_matvec_matches_scipy(n, dtype, rtol):
+    """The XLA block-ELL apply against a SciPy CSR oracle, for n divisible
+    and not divisible by the block size, one RHS and m stacked RHS."""
+    csr = _block_sparse_csr(n, 64, 3, dtype, seed=n)
+    op = BSROperator.from_scipy(csr, block_size=64)
+    assert op.dtype == dtype and op.n_padded == 256
+    rng = np.random.RandomState(1)
+    x = _rand(n, dtype, rng)
+    X = _rand((n, 4), dtype, rng)
+    want = csr.astype(np.complex128) @ x.astype(np.complex128)
+    Want = csr.astype(np.complex128) @ X.astype(np.complex128)
+    y = np.asarray(op.matvec(x))
+    Y = np.asarray(op.matmat(X))
+    assert y.dtype == dtype and y.shape == (n,)
+    assert Y.dtype == dtype and Y.shape == (n, 4)
+    assert np.abs(y - want).max() <= rtol * np.abs(want).max()
+    assert np.abs(Y - Want).max() <= rtol * np.abs(Want).max()
+
+
+def test_vmap_matvec_equals_matmat():
+    """Batched shifted solves vmap the single-RHS apply; XLA's batching of
+    the gather+einsum must give the fused matmat's result."""
+    import jax
+    csr = _block_sparse_csr(200, 64, 2, np.float64, seed=5)
+    op = BSROperator.from_scipy(csr, block_size=64)
+    X = np.random.RandomState(6).standard_normal((200, 6))
+    got = np.asarray(jax.vmap(op.matvec, in_axes=1, out_axes=1)(X))
+    np.testing.assert_allclose(got, np.asarray(op.matmat(X)), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(got, csr @ X, rtol=1e-12, atol=1e-11)
